@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from image_matching_tpu.ckks.params import SchemeParams
-from image_matching_tpu.ckks.context import CkksContext
+from image_matching.ckks.params import SchemeParams
+from image_matching.ckks.context import CkksContext
 
 RNG = np.random.default_rng(3)
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from image_matching_tpu.ckks import encoding as enc
+from image_matching.ckks import encoding as enc
 
 RNG = np.random.default_rng(2)
 N = 128
@@ -35,7 +35,7 @@ def test_galois_5_rotates_left():
 
 
 def test_rns_roundtrip_fast_and_exact():
-    from image_matching_tpu.ckks.params import find_primes_near
+    from image_matching.ckks.params import find_primes_near
 
     primes2 = find_primes_near(1 << 28, 2 * N, 2)
     primes4 = find_primes_near(1 << 28, 2 * N, 4)

@@ -1,4 +1,4 @@
-"""Cost-faithful reference modes that the default TPU-native paths
+"""Cost-faithful reference modes that the default batched paths
 replace: per-term relin+rescale HERS scoring (reference
 src/sender/sender_hers.cpp:70-72) and the non-BSGS diagonal sender using
 all dim-1 hoisted rotations (reference src/sender/sender_diag.cpp:14-26).
@@ -9,12 +9,12 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.ckks.context import CkksContext
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.protocol import MatchingProtocol
-from image_matching_tpu.matching import vector_utils as vu
-from image_matching_tpu.utils import io as dio
+from image_matching.ckks.params import SchemeParams, compute_required_depth
+from image_matching.ckks.context import CkksContext
+from image_matching.matching.config import MatchConfig
+from image_matching.matching.protocol import MatchingProtocol
+from image_matching.matching import vector_utils as vu
+from image_matching.utils import io as dio
 
 RING = 512
 DIM = 64

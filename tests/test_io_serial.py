@@ -5,8 +5,8 @@ import tempfile
 
 import numpy as np
 
-from image_matching_tpu.utils import io as dio
-from image_matching_tpu.utils import native
+from image_matching.utils import io as dio
+from image_matching.utils import native
 
 
 def test_dataset_roundtrip(tmp_path):
@@ -20,7 +20,7 @@ def test_dataset_roundtrip(tmp_path):
 
 def test_planted_match_semantics():
     q, db = dio.gen_dataset(64, 128, seed=3)
-    from image_matching_tpu.matching import vector_utils as vu
+    from image_matching.matching import vector_utils as vu
 
     sims = vu.cosine_similarity(vu.normalize(q)[None, :], vu.normalize(db))
     assert sims[0] > 0.8  # planted match at index 0
@@ -30,8 +30,8 @@ def test_planted_match_semantics():
 def test_native_crt_matches_python():
     if not native.available():
         return
-    from image_matching_tpu.ckks import encoding as enc
-    from image_matching_tpu.ckks.params import find_primes_near
+    from image_matching.ckks import encoding as enc
+    from image_matching.ckks.params import find_primes_near
 
     primes = find_primes_near(1 << 28, 256, 5)
     rng = np.random.default_rng(4)
@@ -43,7 +43,7 @@ def test_native_crt_matches_python():
 
 def test_identity_dataset_separation():
     db, db_ids, queries, qids = dio.gen_identity_dataset(8, 3, 5, 64, seed=5)
-    from image_matching_tpu.matching import vector_utils as vu
+    from image_matching.matching import vector_utils as vu
 
     sims = vu.cosine_similarity(
         vu.normalize(queries[0])[None, :], vu.normalize(db)
@@ -54,9 +54,9 @@ def test_identity_dataset_separation():
 
 
 def test_context_serialization(tmp_path):
-    from image_matching_tpu.ckks.params import SchemeParams
-    from image_matching_tpu.ckks.context import CkksContext
-    from image_matching_tpu.utils import serial
+    from image_matching.ckks.params import SchemeParams
+    from image_matching.ckks.context import CkksContext
+    from image_matching.utils import serial
 
     params = SchemeParams.create(ring_dim=256, mult_depth=2, security="none")
     ctx = CkksContext(params, seed=6)

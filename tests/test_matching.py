@@ -7,12 +7,12 @@ vs plaintext score-parity check (reference src/main_accuracy.cpp:354-364).
 import numpy as np
 import pytest
 
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.ckks.context import CkksContext
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.protocol import MatchingProtocol
-from image_matching_tpu.matching import vector_utils as vu
-from image_matching_tpu.utils import io as dio
+from image_matching.ckks.params import SchemeParams, compute_required_depth
+from image_matching.ckks.context import CkksContext
+from image_matching.matching.config import MatchConfig
+from image_matching.matching.protocol import MatchingProtocol
+from image_matching.matching import vector_utils as vu
+from image_matching.utils import io as dio
 
 RING = 512          # slots = 256
 DIM = 64            # test-scale vector dimension
@@ -96,7 +96,7 @@ def test_score_parity(approach):
 @pytest.mark.slow
 def test_end_to_end_monolithic(monkeypatch):
     """Same approach-5 flow through the monolithic single-jit runner (the
-    TPU default is segmented — senders._use_segments; keep the one-XLA-
+    GPU default is segmented — senders._use_segments; keep the one-XLA-
     program path exercised too)."""
     monkeypatch.delenv("IMTPU_FORCE_SEGMENTS", raising=False)
     proto, query, db = _setup(5, seed=2)

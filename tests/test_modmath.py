@@ -2,9 +2,10 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from image_matching_tpu.ops import modmath as mm
-from image_matching_tpu.ckks.params import find_primes_near
+from image_matching.ops import modmath as mm
+from image_matching.ckks.params import find_primes_near
 
 RNG = np.random.default_rng(0)
 
@@ -20,6 +21,31 @@ def test_mul32_wide():
     prod = a.astype(np.uint64) * b.astype(np.uint64)
     np.testing.assert_array_equal(np.asarray(hi), (prod >> 32).astype(np.uint32))
     np.testing.assert_array_equal(np.asarray(lo), (prod & 0xFFFFFFFF).astype(np.uint32))
+
+
+EDGE32 = [0, 1, 0xFFFF, 0x10000, (1 << 31) - 1, (1 << 32) - 1]
+
+
+@pytest.mark.parametrize("a", EDGE32)
+@pytest.mark.parametrize("b", [0, 1, (1 << 32) - 1])
+def test_mul32_wide_edges(a, b):
+    hi, lo = mm.mul32_wide(jnp.asarray([a], jnp.uint32),
+                           jnp.asarray([b], jnp.uint32))
+    prod = a * b
+    assert int(hi[0]) == prod >> 32 and int(lo[0]) == prod & 0xFFFFFFFF
+
+
+_Q30 = find_primes_near(1 << 30, 2048, 1)[0]
+
+
+@pytest.mark.parametrize("a", [0, 1, _Q30 - 1, (1 << 32) - 1])
+@pytest.mark.parametrize("b", [0, 1, _Q30 - 1])
+def test_mont_mul_edges(a, b):
+    """mont_mul(a, b) = a * b * R^-1 mod q for a < 2^32, b < q."""
+    qneg_inv = mm.host_mont_constants(_Q30)[0]
+    out = mm.mont_mul(jnp.asarray([a], jnp.uint32), jnp.asarray([b], jnp.uint32),
+                      jnp.uint32(_Q30), jnp.uint32(qneg_inv))
+    assert int(out[0]) == a * b * pow(1 << 32, -1, _Q30) % _Q30
 
 
 def test_mont_mul_roundtrip():

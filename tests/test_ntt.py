@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from image_matching_tpu.ops import modmath as mm
-from image_matching_tpu.ops import ntt as nttmod
-from image_matching_tpu.ckks.params import find_primes_near, root_of_unity
+from image_matching.ops import modmath as mm
+from image_matching.ops import ntt as nttmod
+from image_matching.ckks.params import find_primes_near, root_of_unity
 
 RNG = np.random.default_rng(1)
 N = 64

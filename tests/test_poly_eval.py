@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from image_matching_tpu.ckks.params import SchemeParams
-from image_matching_tpu.ckks.context import CkksContext
-from image_matching_tpu.ckks import poly_eval as pe
+from image_matching.ckks.params import SchemeParams
+from image_matching.ckks.context import CkksContext
+from image_matching.ckks import poly_eval as pe
 
 RNG = np.random.default_rng(5)
 

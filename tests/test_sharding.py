@@ -6,13 +6,13 @@ import jax
 
 pytestmark = pytest.mark.slow
 
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.ckks.context import CkksContext
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.protocol import MatchingProtocol
-from image_matching_tpu.parallel.sharded import (
+from image_matching.ckks.params import SchemeParams, compute_required_depth
+from image_matching.ckks.context import CkksContext
+from image_matching.matching.config import MatchConfig
+from image_matching.matching.protocol import MatchingProtocol
+from image_matching.parallel.sharded import (
     make_mesh, ShardedScenario, ShardedStreamedScenario)
-from image_matching_tpu.utils import io as dio
+from image_matching.utils import io as dio
 
 DIM = 64
 RING = 512
@@ -121,3 +121,16 @@ def test_sharded_hers_membership_matches_single():
     v2 = proto.ctx.decrypt(multi)[0]
     assert (v1 >= 1.0) == (v2 >= 1.0) == True  # noqa: E712
     np.testing.assert_allclose(v1, v2, atol=1e-2)
+
+
+@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 devices")
+def test_chip_smoke_four_card_flags_identical():
+    """chip_smoke --four's comparison at ring 512: ShardedStreamedScenario
+    and ShardedScenario flags bit-identical to the one-card sender."""
+    import chip_smoke
+    cfg = MatchConfig(vector_dim=DIM, chunk_len=16, comp_depth=8)
+    ctx = chip_smoke.make_context(5, ring=RING, cfg=cfg, seed=3)
+    r = chip_smoke.four_card(log2n=10, n_devices=4, ctx=ctx, cfg=cfg, seed=3)
+    assert r["groups"] == 4
+    assert r["decrypted"]["one"] == [True, [0]]
+    assert r["sharded_flags_identical"] and r["streamed_membership_identical"]

@@ -11,16 +11,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-pytestmark = pytest.mark.slow
-
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.ckks.context import CkksContext, Ciphertext
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.protocol import MatchingProtocol
-from image_matching_tpu.matching import streaming
-from image_matching_tpu.ops import prng
-from image_matching_tpu.utils import io as dio
-from image_matching_tpu.utils import native
+from image_matching.ckks.params import SchemeParams, compute_required_depth
+from image_matching.ckks.context import CkksContext, Ciphertext
+from image_matching.matching.config import MatchConfig
+from image_matching.matching.protocol import MatchingProtocol
+from image_matching.matching import streaming
+from image_matching.ops import prng
+from image_matching.utils import io as dio
+from image_matching.utils import native
 
 RING = 512
 DIM = 64
@@ -31,6 +29,13 @@ def _cfg():
 
 
 _CTX = {}
+
+
+@pytest.fixture
+def native_lib():
+    """Skip (at run time, not import) when the C++ library cannot be built."""
+    if not native.available():
+        pytest.skip("native library not built")
 
 
 def _ctx():
@@ -52,6 +57,7 @@ def test_threefry_jnp_matches_numpy():
     np.testing.assert_array_equal(np.asarray(l_j), l_np)
 
 
+@pytest.mark.slow
 def test_seeded_encrypt_roundtrip():
     ctx = _ctx()
     rng = np.random.default_rng(3)
@@ -64,8 +70,8 @@ def test_seeded_encrypt_roundtrip():
         np.testing.assert_allclose(got, vals[i], atol=1e-6)
 
 
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_native_enroll_matches_device_stream():
+@pytest.mark.slow
+def test_native_enroll_matches_device_stream(native_lib):
     """The C++ host engine must produce ciphertexts the device can decrypt
     with its own regenerated c1 — proving the Threefry streams and NTT
     wiring agree across languages."""
@@ -98,6 +104,7 @@ def test_uniform_mont_distribution():
         assert abs(m / q - 0.5) < 0.01
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("nvec", [40, 300])
 def test_streamed_matches_inmemory(nvec):
     """Streamed sender (host-spilled groups + seeded c1) returns the same
@@ -128,6 +135,7 @@ def test_streamed_matches_inmemory(nvec):
     assert 0 in idx
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("nvec", [300])
 def test_streamed_hers_matches_inmemory(nvec):
     """Streamed HERS sender (approach 4, dimension-major groups + seeded
@@ -157,8 +165,8 @@ def test_streamed_hers_matches_inmemory(nvec):
     assert 0 in idx
 
 
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_enroll_cache_resume(tmp_path, monkeypatch):
+@pytest.mark.slow
+def test_enroll_cache_resume(tmp_path, monkeypatch, native_lib):
     """Interrupted enrollment resumes from the per-group cache files: a
     cache dir with no meta.json (incomplete run) is picked up, complete
     groups are trusted, and the newest file — possibly a torn write from a
@@ -189,8 +197,8 @@ def test_enroll_cache_resume(tmp_path, monkeypatch):
     assert 0 in proto.decrypt_index(proto.sender.run_index(qcts))
 
 
-@pytest.mark.skipif(not native.available(), reason="native lib not built")
-def test_streamed_native_engine_end_to_end():
+@pytest.mark.slow
+def test_streamed_native_engine_end_to_end(native_lib):
     """Full streamed pipeline with the C++ host enroller."""
     cfg = _cfg()
     ctx = _ctx()
@@ -202,6 +210,7 @@ def test_streamed_native_engine_end_to_end():
     assert 0 in st.decrypt_index(st.sender.run_index(qcts))
 
 
+@pytest.mark.slow
 def test_encode_split_matches_batch_encrypt():
     """encrypt_seeded_from_split(encode_split(v)) must equal
     encrypt_seeded_batch(v) given the same noise stream — the contract the

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Benchmark matrix: all five approaches at the BASELINE.md config sizes on
-the attached TPU, producing a scalability table comparable to the
-reference's tools/figures/approach{1..5}.csv.
+the GPU, producing a scalability table comparable to the reference's
+tools/figures/approach{1..5}.csv.  Every row names the device it ran on;
+the run exits non-zero if any point erred or timed out.
 
 Timing discipline: one warmup run (includes jit compile), then the timed
 run — matching bench.py and the reference's "server computation time"
@@ -48,13 +49,16 @@ DEFAULT = "1:10,2:12,3:14,4:14,5:13,5:16,5:17"
 
 def run_one(approach: int, log2n: int, ring: int, streamed: bool) -> dict:
     import jax
-    from image_matching_tpu.utils.jaxcfg import enable_compilation_cache
+    from image_matching.utils import device
+    from image_matching.utils.jaxcfg import enable_compilation_cache
+    devs = jax.devices()
+    device.require_gpu(devs, allow_cpu=os.environ.get("JAX_PLATFORMS") == "cpu")
     enable_compilation_cache()
-    from image_matching_tpu.ckks.params import (SchemeParams,
+    from image_matching.ckks.params import (SchemeParams,
                                                 compute_required_depth)
-    from image_matching_tpu.matching.config import MatchConfig
-    from image_matching_tpu.matching.protocol import MatchingProtocol
-    from image_matching_tpu.utils import io as dio
+    from image_matching.matching.config import MatchConfig
+    from image_matching.matching.protocol import MatchingProtocol
+    from image_matching.utils import io as dio
 
     # A2 runs cost-faithful: membership computes-and-discards the alpha-norm
     # colCipher exactly like the reference's timed loop does
@@ -78,6 +82,7 @@ def run_one(approach: int, log2n: int, ring: int, streamed: bool) -> dict:
     query_enc_s = time.time() - t0
 
     row = {"approach": approach, "log2n": log2n, "ring": ring,
+           "device": {**device.describe(devs), "card": device.card_info()},
            "streamed": streamed, "enroll_s": round(enroll_s, 2),
            "query_enc_s": round(query_enc_s, 4), "query_cts": len(qcts)}
 
@@ -141,20 +146,25 @@ def main():
         # previous point (jit executables, lingering stores) otherwise
         # accumulates and OOMs mid-matrix (round-4 A5@2^17 failure)
         import subprocess
+        failed = 0
         for spec in specs:
             cmd = [sys.executable, os.path.abspath(__file__),
                    "--configs", spec, "--ring", str(args.ring),
                    "--out", args.out, "--in-process"]
             try:
-                subprocess.run(cmd, timeout=args.timeout, check=False)
+                rc = subprocess.run(cmd, timeout=args.timeout,
+                                    check=False).returncode
             except subprocess.TimeoutExpired:
+                rc = 1
                 a, n = (int(x) for x in spec.split(":"))
                 row = {"approach": a, "log2n": n,
                        "error": f"timeout after {args.timeout:.0f}s"}
                 with open(args.out, "a") as f:
                     f.write(json.dumps(row) + "\n")
-        return
+            failed += rc != 0
+        return 1 if failed else 0
 
+    failed = 0
     for spec in specs:
         a, n = (int(x) for x in spec.split(":"))
         streamed = a in (4, 5) and n >= 16
@@ -162,12 +172,15 @@ def main():
               flush=True)
         try:
             row = run_one(a, n, args.ring, streamed)
-        except Exception as e:
+            failed += not (row["membership_ok"] and row["index_ok"])
+        except Exception as e:  # recorded as an error row; exit code says so
             row = {"approach": a, "log2n": n, "error": f"{type(e).__name__}: {e}"}
+            failed += 1
         print(json.dumps(row), flush=True)
         with open(args.out, "a") as f:
             f.write(json.dumps(row) + "\n")
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -48,8 +48,8 @@ def main():
     if not latest:
         sys.exit("no usable rows in the matrix (need round-4 format)")
 
-    from image_matching_tpu.harness.latency import CSV_HEADER
-    from image_matching_tpu.harness import figures
+    from image_matching.harness.latency import CSV_HEADER
+    from image_matching.harness import figures
 
     os.makedirs(os.path.dirname(args.csv) or ".", exist_ok=True)
     with open(args.csv, "w") as f:
@@ -73,7 +73,10 @@ def main():
             f.write(json.dumps(r) + "\n")
     print(f"-> {clean}")
 
-    figures.generate(args.csv, args.outdir)
+    kinds = sorted({r["device"]["kind"] for r in latest.values()
+                    if "device" in r})
+    figures.generate(args.csv, args.outdir,
+                     ", ".join(kinds) or "device not recorded")
     figures.sign_approx_table(os.path.join(args.outdir, "sign_approx.csv"))
     figures.sign_approx_plot(os.path.join(args.outdir, "sign_approx.png"))
 

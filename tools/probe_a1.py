@@ -3,14 +3,14 @@ Compares (a) raw per-batch scores (mul+relin+rescale+eval_sum(512)) and
 (b) merged scores, both against the plaintext cosine oracle."""
 import time
 import numpy as np, jax, jax.numpy as jnp
-from image_matching_tpu.utils.jaxcfg import enable_compilation_cache
+from image_matching.utils.jaxcfg import enable_compilation_cache
 enable_compilation_cache()
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.ckks.context import Ciphertext
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.protocol import MatchingProtocol
-from image_matching_tpu.matching import vector_utils as vu
-from image_matching_tpu.utils import io as dio
+from image_matching.ckks.params import SchemeParams, compute_required_depth
+from image_matching.ckks.context import Ciphertext
+from image_matching.matching.config import MatchConfig
+from image_matching.matching.protocol import MatchingProtocol
+from image_matching.matching import vector_utils as vu
+from image_matching.utils import io as dio
 
 cfg = MatchConfig()
 depth = compute_required_depth(1, cfg.comp_depth, cfg.alpha_depth)

@@ -13,8 +13,8 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from image_matching_tpu.harness.latency import run  # noqa: E402
-from image_matching_tpu.utils import io as dio  # noqa: E402
+from image_matching.harness.latency import run  # noqa: E402
+from image_matching.utils import io as dio  # noqa: E402
 
 
 def main():
